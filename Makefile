@@ -3,7 +3,7 @@
 
 PY ?= python
 
-.PHONY: test test-fast bench dryrun coverage examples lint ci clean
+.PHONY: test test-fast bench chip-smoke dryrun coverage examples lint ci clean
 
 test:
 	$(PY) -m pytest tests/ -q -n 2
@@ -17,11 +17,12 @@ ci: lint test dryrun examples coverage
 test-fast:
 	$(PY) -m pytest tests/test_smoke.py tests/test_public_api.py -q
 
-# bench writes benchmarks/BENCH_SUITE.json, then the perf docs regenerate
-# from that artifact so prose can never drift from the measurement
+# bench and chip-smoke run on the GPU (one process for the card)
 bench:
 	$(PY) bench.py
-	$(PY) scripts/gen_perf_docs.py
+
+chip-smoke:
+	$(PY) chip_smoke.py
 
 dryrun:
 	XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \

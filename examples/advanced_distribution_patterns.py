@@ -2,7 +2,7 @@
 reparameterization, and compound distributions.
 
 Reference: examples/advanced_distribution_patterns.rs (hierarchical priors,
-mixture components, truncation-by-rejection, parameter transforms). TPU-native
+mixture components, truncation-by-rejection, parameter transforms). Array-program
 recast: truncation is a ``guard``/``factor`` mass correction instead of a
 rejection loop; mixtures marginalize components with ``log_sum_exp`` so HMC
 gets exact gradients; positive/unit-interval sites ride the automatic

@@ -2,11 +2,11 @@
 
 Reference: examples/building_complex_models.rs (prob! do-notation, plate!
 notation, scoped_addr!, sequencing combinators, hierarchical composition).
-TPU-native recast: models are plain Python functions issuing ``sample`` /
+Array-program recast: models are plain Python functions issuing ``sample`` /
 ``observe`` / ``factor`` effects — Python's native do-notation — and plates
 come in two flavors: the scalar ``ft.plate`` loop (per-index addresses, exact
 reference semantics) and *vector sites* (one address, batched distribution),
-which is the idiomatic TPU form because it stages to a single fused op.
+which is the idiomatic staged form because it stages to a single fused op.
 
 Run: PYTHONPATH=. python examples/building_complex_models.py
 """

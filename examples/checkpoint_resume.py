@@ -8,17 +8,14 @@ Demonstrates:
     BITWISE identically to an uninterrupted run;
  3. persistence round-trip through runtime.checkpoint (npz).
 
-Run: JAX_PLATFORMS=cpu python examples/checkpoint_resume.py
+Run: PYTHONPATH=. python examples/checkpoint_resume.py
 """
 
 import os
 import tempfile
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """ChEES-HMC: trajectory lengths learned from the chain batch.
 
 hierarchical_models.py runs eight-schools with NUTS; this example runs the
-TPU-native alternative: every chain shares ONE jittered trajectory length,
+Lock-step alternative: every chain shares ONE jittered trajectory length,
 learned by gradient ascent on the ChEES criterion from cross-chain
 statistics (Hoffman, Radul & Sountsov 2021). No per-chain control flow —
 the batch stays lock-step, which is why this engine exists for
@@ -17,7 +17,6 @@ import numpy as np
 
 import fugue_tpu as ft
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 # Correlated Gaussian: the long principal axis (sd ~ sqrt(1.9)) needs a

@@ -2,8 +2,8 @@
 
 Reference: examples/classification.rs (binary logistic regression with
 adaptive MH over synthetic data with known coefficients, plus multi-class).
-TPU-native recast: gradients come from autodiff, so we run NUTS over the full
-coefficient vector at once — the logit matmul rides the MXU, and chains are a
+Array-program recast: gradients come from autodiff, so we run NUTS over the full
+coefficient vector at once — the logit matmul is one batched product, and chains are a
 vectorized batch axis. Ends in recovery asserts against the generating
 coefficients and a held-out accuracy check (the reference pattern: examples
 double as regression tests).

@@ -2,7 +2,7 @@
 
 Reference: examples with discrete sites + the Metropolis-within-Gibbs
 composition (hmc.rs:69-71). Three strategies, in order of preference:
-1. marginalize enumerable discretes (exact, fastest on TPU),
+1. marginalize enumerable discretes (exact, fastest on the device),
 2. HMC-within-Gibbs for non-enumerable counts,
 3. pure MH when everything is discrete.
 """

@@ -18,7 +18,6 @@ import numpy as np
 
 import fugue_tpu as ft
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 

@@ -1,20 +1,20 @@
 """The at-scale GLM workflow: data-as-arguments, split-precision matmuls,
 MAP warm start, fixed pre-tuned kernel, and resume.
 
-This is the shape of the scale-tier bench rows (benchmarks/SCALE_TIER.json:
-d=1024, N=1e5 on the chip) at a CPU-friendly size, showing the five APIs
-that make large-d GLMs work on TPU:
+This is the shape of the scale-tier bench rows (bench.py: d=1024, N=1e5 on
+the GPU) at a CPU-friendly size, showing the five APIs that make large-d
+GLMs work on an accelerator:
 
 1. pass the design matrix through ``stage(model, X, y)`` — array arguments
    >= 1 MiB become traced jit inputs of the compiled drives instead of
    baked compile-payload constants (``StagedModel.data_leaves``);
-2. ``ops.matmul_bf16x2`` computes the linear predictor on the MXU in
+2. ``ops.matmul_bf16x2`` computes the linear predictor on the tensor cores in
    split bf16 precision with an exact custom VJP — bf16 data, ~f32
    parameter smoothness (plain bf16 parameter rounding makes the potential
    rough and collapses step-size adaptation); for pure MCMC drives,
    ``ops.matmul_bf16x2_fastgrad`` keeps the split forward and drops the
-   backward's cotangent split — 1.21x the grad rate at identical sampling
-   quality (benchmarks/FASTGRAD_PROBE.json);
+   backward's cotangent split (3 matmul passes per value+grad instead of
+   4; the force error is MH-corrected);
 3. ``BernoulliLogits`` is the saturation-free logistic likelihood;
 4. MAP (LBFGS on the same staged potential) warm-starts the chains —
    far-tail inits cost more warmup than the optimization does;
@@ -27,7 +27,6 @@ Run: PYTHONPATH=. python examples/glm_at_scale.py
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

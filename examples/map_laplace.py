@@ -14,7 +14,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import fugue_tpu as ft  # noqa: E402

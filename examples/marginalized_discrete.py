@@ -19,7 +19,6 @@ from scipy import stats
 
 import fugue_tpu as ft
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 Y = 1.5

@@ -1,7 +1,7 @@
 """Optimizing performance: stable numerics, kernel caching, vectorized scaling.
 
 Reference: examples/optimizing_performance.rs (log-space numerics, trace reuse,
-efficient handler patterns, timing harness). TPU-native recast: the big wins
+efficient handler patterns, timing harness). Array-program recast: the big wins
 are architectural — stage once + cache compiled kernels (never rebuild a
 ``jax.jit`` closure per call), batch chains as an array axis instead of a
 Python loop, and keep everything in log space on the VPU. ``time_jit``
@@ -63,7 +63,7 @@ def main():
         n_draws = np.asarray(res.samples["mu"]).size
         print(f"  {n_chains:5d} chains -> {n_draws} draws in ONE compiled program")
     # 16x the chains costs far less than 16x the time on a vector machine:
-    # the chain axis vectorizes onto the VPU/MXU lanes.
+    # the chain axis vectorizes into one batched program.
 
     print("\n=== 4. Gradients are free (autodiff), not 2d model runs ===")
     g = jax.jit(jax.grad(staged.potential))

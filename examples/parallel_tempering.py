@@ -1,6 +1,6 @@
 """Parallel tempering: sampling a multimodal posterior HMC cannot mix.
 
-Beyond-parity TPU-native engine (no reference counterpart; the reference's
+Beyond-parity engine (no reference counterpart; the reference's
 closest machinery is the SEQUENTIAL likelihood-tempering ladder inside SMC,
 src/inference/smc.rs:455-580 — here all K rungs run simultaneously as one
 vectorized batch axis with replica-exchange swaps).

@@ -2,7 +2,7 @@
 checkpoint/resume.
 
 Reference: examples/production_deployment.rs:12-753 (robust handlers, health
-checks, input validators). TPU additions: checkpointed long runs and the
+checks, input validators). Additions here: checkpointed long runs and the
 convergence gate as a deployment health check.
 """
 

@@ -1,6 +1,6 @@
 """Multi-device inference: chains and particles across a mesh.
 
-Runs on any device set — a real TPU slice or a virtual CPU mesh:
+Runs on any device set — several GPUs or a virtual CPU mesh:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         PYTHONPATH=. python examples/sharded_inference.py
 """

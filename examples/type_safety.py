@@ -1,7 +1,7 @@
 """Type safety: natural dtypes end-to-end, typed trace getters, error taxonomy.
 
 Reference: examples/type_safety.rs (natural return types vs f64-everything
-PPLs; typed trace access; compile-time safety). The TPU recast keeps the same
+PPLs; typed trace access; compile-time safety). The array-program recast keeps the same
 guarantees at the dtype level: Bernoulli sites are bool arrays, count sites
 are integer arrays, and the Trace exposes typed getters that raise
 ``TypeMismatchError``/``TraceAccessError`` with stable error codes instead of

@@ -1,7 +1,7 @@
 """Tour of the 17-distribution library: natural dtypes, log-densities, batching.
 
 Reference: examples/working_with_distributions.rs (type-safety demo, continuous
-and discrete tours, log_prob usage, parameter validation). TPU-native recast:
+and discrete tours, log_prob usage, parameter validation). Array-program recast:
 every distribution is a pure ``(sample(key, shape), log_prob(x))`` pair —
 sampling is functional over PRNG keys and broadcasts over leading batch axes,
 so "draw 10,000 samples" is one vectorized call, not a loop.

@@ -1,6 +1,6 @@
-"""fugue-tpu: a TPU-native probabilistic-programming inference engine.
+"""fugue-tpu: a probabilistic-programming inference engine on JAX/XLA.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the
+A brand-new JAX/XLA implementation of the capabilities of the
 ``fugue`` PPL (monadic model DSL over 17 typed distributions, trace-based
 replay/scoring runtime, adaptive MH / HMC / NUTS / tempered SMC / mean-field
 VI / ABC, convergence diagnostics, conjugate validation harnesses) —

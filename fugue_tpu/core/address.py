@@ -5,7 +5,7 @@ Capability parity with the reference ``Address`` type
 lexicographic order) and its injective escaping scheme
 (src/core/address.rs:174-223, FG-26/52: ``addr("a#1") != addr("a", 1)``).
 
-TPU-native design note: in the staged architecture addresses exist only at
+Design note: in the staged architecture addresses exist only at
 *staging time* (host Python). Once a model is staged, every site is a fixed
 slot in a flat position vector, so address operations never appear in compiled
 code. Interning via ``sys.intern`` gives the O(1)-compare property the

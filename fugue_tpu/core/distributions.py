@@ -5,7 +5,7 @@ Capability parity with the reference distribution layer
 LogNormal:367, Exponential:472, Bernoulli:552, Categorical:655, Beta:830,
 Gamma:990, Binomial:1103, Poisson:1206, StudentT:1297, Cauchy:1405,
 Laplace:1484, Weibull:1570, ChiSquared:1668, InverseGamma:1737,
-DiscreteUniform:1833), re-designed TPU-first:
+DiscreteUniform:1833), re-designed as array programs:
 
 - ``sample(key, sample_shape)`` is a pure function of a counter-based PRNG
   key, so thousands of chains/particles draw in parallel with zero shared
@@ -23,7 +23,7 @@ DiscreteUniform:1833), re-designed TPU-first:
   parameters are validated implicitly via -inf/nan propagation.
 
 Every distribution declares a ``support`` used by staging to choose HMC
-unconstraining transforms, MH proposal kinds, and VI families (the TPU analog
+unconstraining transforms, MH proposal kinds, and VI families (the array-program analog
 of the reference's support-detection logic, src/inference/mh.rs:146-161 and
 src/inference/vi.rs:119-126).
 """
@@ -543,7 +543,7 @@ class InverseGamma(Distribution):
 class HalfNormal(Distribution):
     """HalfNormal(scale): |N(0, scale²)| on [0, ∞).
 
-    TPU-native extension (no reference counterpart) — the standard
+    Extension (no reference counterpart) — the standard
     weakly-informative prior for hierarchical scale parameters (Gelman
     2006); pairs with the Exp transform for HMC/NUTS/ChEES."""
 
@@ -575,7 +575,7 @@ class HalfNormal(Distribution):
 class HalfCauchy(Distribution):
     """HalfCauchy(scale): |Cauchy(0, scale)| on [0, ∞).
 
-    TPU-native extension — the heavy-tailed hierarchical scale prior
+    Extension — the heavy-tailed hierarchical scale prior
     (eight-schools' canonical tau prior)."""
 
     support = POSITIVE
@@ -642,7 +642,7 @@ class Bernoulli(Distribution):
 class BernoulliLogits(Distribution):
     """Bernoulli parameterized on the log-odds scale → bool.
 
-    TPU-native extension (no reference counterpart): the numerically stable
+    Extension (no reference counterpart): the numerically stable
     likelihood for logistic models — ``log p = -softplus(∓logits)`` never
     saturates where ``log(sigmoid(x))`` underflows, and the staged GLM
     potential keeps the X @ w matmul feeding it directly (no intermediate
@@ -672,7 +672,7 @@ class BernoulliLogits(Distribution):
 
 class Categorical(Distribution):
     """Categorical(probs) → index in [0, k). Reference: :655-770 (cached-CDF
-    binary-search sampling, FG-53 — on TPU this is ``jax.random.categorical``
+    binary-search sampling, FG-53 — here this is ``jax.random.categorical``
     on log-probabilities, a single fused Gumbel-argmax kernel)."""
 
     def __init__(self, probs=None, logits=None):
@@ -823,7 +823,7 @@ class Geometric(Distribution):
     {0, 1, 2, …} (the NegativeBinomial(1, p) convention; scipy's ``geom``
     counts trials and starts at 1).
 
-    TPU-native extension (no reference counterpart). Sampling is one
+    Extension (no reference counterpart). Sampling is one
     inverse-CDF transform: k = ⌊log U / log(1−p)⌋."""
 
     support = COUNT
@@ -877,7 +877,7 @@ class NegativeBinomial(Distribution):
     ``total_count``-th success (success probability ``probs``), on
     {0, 1, 2, …} — scipy's ``nbinom(n, p)`` convention; mean r(1−p)/p.
 
-    TPU-native extension (no reference counterpart): the overdispersed
+    Extension (no reference counterpart): the overdispersed
     count likelihood Poisson cannot express. Sampling is the exact
     Gamma-Poisson mixture — two fused vectorized kernels."""
 
@@ -965,12 +965,12 @@ class DiscreteUniform(Distribution):
 
 
 # ---------------------------------------------------------------------------
-# Multivariate distributions (TPU-native extension)
+# Multivariate distributions (extension)
 # ---------------------------------------------------------------------------
 #
 # The reference library is strictly univariate (distribution.rs:39-94 — every
-# trait impl returns a scalar). On TPU, vector-valued sites are the natural
-# unit of work (one site = one MXU-friendly array op), so the framework adds
+# trait impl returns a scalar). On an accelerator, vector-valued sites are the natural
+# unit of work (one site = one batched array op), so the framework adds
 # first-class multivariate families on top of the 17-distribution parity set:
 # sites with event shapes stage into the same flat layouts, HMC/NUTS run on
 # the stick-breaking-unconstrained space, and VI gets a Dirichlet family.
@@ -980,7 +980,7 @@ class Dirichlet(Distribution):
     """Dirichlet(concentration) → point on the (k-1)-simplex, event shape
     ``(k,)`` over the last axis of ``concentration``.
 
-    TPU-native extension (no reference counterpart; the reference is
+    Extension (no reference counterpart; the reference is
     univariate-only). Sampling uses the Gamma-normalization construction so
     dtype policy and key-splitting match the rest of the library; HMC/NUTS
     handle simplex sites through the ``StickBreaking`` transform
@@ -1041,8 +1041,8 @@ class MultivariateNormal(Distribution):
     """MultivariateNormal(loc, covariance= | scale_tril=) → R^d vector,
     event shape ``(d,)``.
 
-    TPU-native extension (no reference counterpart). Sampling is one batched
-    ``eps @ L^T`` matmul (MXU path); ``log_prob`` is a triangular solve —
+    Extension (no reference counterpart). Sampling is one batched
+    ``eps @ L^T`` matmul; ``log_prob`` is a triangular solve —
     both batch over leading axes, so a 1024-chain HMC run scores all chains
     in one kernel."""
 

@@ -6,7 +6,7 @@ src/core/model.rs — ``Model<A>`` CPS enum :20-131, smart constructors
 ``bind/map/and_then/zip/sequence_vec/traverse_vec`` :447-680) and the surface
 macros (src/macros/mod.rs — ``prob!`` do-notation :29-69, ``plate!`` :82-86).
 
-TPU-native design: instead of a CPS-encoded enum walked by a trampoline, a
+Array-program design: instead of a CPS-encoded enum walked by a trampoline, a
 model is ordinary Python code that calls the effect functions ``sample`` /
 ``observe`` / ``factor``; an ambient *handler stack* interprets the effects
 (algebraic-effects style). Python's native sequencing IS do-notation, so
@@ -16,7 +16,7 @@ the whole model executes at trace time and disappears into one XLA program —
 the compiled analog of "Rust, not an interpreted AST".
 
 Effect values may be *arrays* (a site can carry ``sample_shape``), which is
-the idiomatic TPU form of ``plate!``: one vectorized site instead of n scalar
+the idiomatic staged form of ``plate!``: one vectorized site instead of n scalar
 sites. The scalar-loop ``plate`` is also provided for reference parity.
 """
 
@@ -111,7 +111,7 @@ class masked:
     """Context manager: observe/factor effects inside contribute their
     log-weight only where ``condition`` is True.
 
-    The TPU-native form of a data-dependent branch: the region's sites always
+    The staged form of a data-dependent branch: the region's sites always
     execute (static site table, static shapes — XLA requirement), but the
     inactive branch's likelihood and factor terms are zeroed. Latent sites
     inside keep their prior term (pseudo-prior; see ``_MaskedDistribution``),

@@ -4,7 +4,7 @@ Capability parity with the reference numerics module
 (reference: src/core/numerical.rs — log_sum_exp:15, weighted_log_sum_exp:51,
 normalize_log_probs:87, log1p_exp:101, safe_ln:123, log_gamma:140), rebuilt as
 vectorized, jit-able array functions. Everything accepts batched inputs and an
-``axis`` argument because on TPU these run over whole chain/particle batches
+``axis`` argument because on the device these run over whole chain/particle batches
 at once rather than one Vec<f64> at a time.
 """
 
@@ -85,7 +85,7 @@ def inv_softplus(y):
 
 
 def compensated_sum(x, block: int = 4096):
-    """Blocked-Kahan full-array sum: near-f64 accuracy in f32, TPU-shaped.
+    """Blocked-Kahan full-array sum: near-f64 accuracy in f32, vectorized.
 
     The f32 accumulation policy for huge observation plates (SURVEY.md §7
     hard part 5). Naive ``jnp.sum`` over 10^6 f32 log-probs carries

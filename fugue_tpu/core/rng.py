@@ -1,7 +1,7 @@
 """Deterministic counter-based key derivation.
 
 The reference threads one sequential RNG through every engine ("seed = a
-replayable recording", crates/fugue-wasm/src/lib.rs:12-14). The TPU-native
+replayable recording", crates/fugue-wasm/src/lib.rs:12-14). The array-program
 equivalent (SURVEY.md §2.3): counter-based ``jax.random`` keys split per
 (chain, site, iteration), so results are reproducible AND independent of
 sharding layout / execution order.

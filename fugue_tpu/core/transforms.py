@@ -2,7 +2,7 @@
 
 The reference's HMC runs on *constrained* values and relies on -inf rejection
 at support boundaries, explicitly leaving reparameterization to the user
-(reference: src/inference/hmc.rs:62-66). The TPU build adds the transforms the
+(reference: src/inference/hmc.rs:62-66). This build adds the transforms the
 reference punts on (SURVEY.md §7 step 4): each continuous support maps to a
 bijector z ∈ R ↔ x ∈ support with a log-|Jacobian| term, so HMC/NUTS/VI
 operate on unconstrained R^d with exact densities.

@@ -9,7 +9,7 @@ soft runtime errors degrade to ``factor(-inf)`` + a collected warning
 (dsl.rs:1-34); ``CompiledModel::{compile, build, take_warnings}``
 dsl.rs:1057-1131).
 
-TPU-native design: the DSL compiles to an ordinary effectful model closure,
+Design: the DSL compiles to an ordinary effectful model closure,
 so a compiled program STAGES like any hand-written model — one discovery run,
 then jit-compiled log-density array programs; the browser/runtime-eval use
 case gains the full vectorized engine suite for free.

@@ -8,7 +8,7 @@ seeded adaptation + capped history + optional pinned proposal scale
 model (pf.rs:1-70); one-shot ``wasm_smc_run`` (smc.rs:30); 2-D posterior
 ``log_joint_grid`` heatmaps (grid.rs:22)).
 
-TPU-native: each session holds device-resident state and every ``step`` is a
+Device-resident: each session holds device-resident state and every ``step`` is a
 jit-compiled kernel; chains within a session are vmapped (the reference
 round-robins ≤16 chains in one thread — here any count runs in lock-step).
 ``HmcSession`` (inference/hmc.py) already provides the recorded-trajectory

@@ -34,7 +34,7 @@ class ErrorCode(enum.IntEnum):
     TRACE_ADDRESS_NOT_FOUND = 500
     # 6xx — type errors
     TYPE_MISMATCH = 600
-    # 7xx — staging/compilation errors (new in the TPU build: the staging
+    # 7xx — staging/compilation errors (new in this build: the staging
     # architecture introduces a compile boundary the reference did not have)
     NOT_STAGEABLE = 700
     INVALID_SHARDING = 701

@@ -1,4 +1,4 @@
-"""ChEES-HMC: cross-chain adaptive trajectory lengths, lock-step on TPU.
+"""ChEES-HMC: cross-chain adaptive trajectory lengths, lock-step on device.
 
 NUTS adapts trajectory length per chain by building a tree until a U-turn —
 inherently divergent control flow that vectorized lanes pay for at the depth
@@ -14,14 +14,14 @@ criterion
 
 whose gradient is estimated FROM THE CHAIN BATCH itself — the cross-chain
 expectations that a single sequential chain cannot see are exactly what a
-(chains, d) TPU layout provides for free. Every transition is a plain
-fixed-step leapfrog over the whole batch (MXU/VPU-dense, zero wasted
+(chains, d) batch layout provides for free. Every transition is a plain
+fixed-step leapfrog over the whole batch (dense batched work, zero wasted
 lanes); the step count varies only *between* iterations (one shared
 ``while_loop`` trip count), never across chains.
 
 Relation to the reference: this engine has no counterpart in fugue (its HMC
 has fixed user-chosen L, src/inference/hmc.rs:105-135); it is the
-TPU-native answer to the same question NUTS answers sequentially.
+lock-step answer to the same question NUTS answers sequentially.
 
 Per-iteration recipe (all chains, one compiled body):
 1. jitter: τ_t = h_t · T with h_t the base-2 Halton point (shared across
@@ -237,7 +237,7 @@ def halton_sequence(n: int) -> np.ndarray:
 def _batched_leapfrog_dyn(grad_all, Q, P, eps, n_steps, inv_mass):
     """``n_steps`` (traced, shared) leapfrog steps for the whole (chains, d)
     batch: ONE while_loop whose body advances every chain — the lock-step
-    structure that makes ChEES TPU-shaped. L+1 batched gradient evals."""
+    structure that makes ChEES accelerator-shaped. L+1 batched gradient evals."""
     G = grad_all(Q)
 
     def vel(P):
@@ -292,7 +292,7 @@ def chees_gradient(Q, Q_prop, V_end, accept_prob, h, cmean, proj=None):
     products. Passing the preconditioned principal direction (divided
     elementwise by sqrt(mass scale)) makes this the SNAPER-HMC surrogate.
 
-    Numerically hardened for the f32 TPU path (an early-warmup proposal can
+    Numerically hardened for the f32 device path (an early-warmup proposal can
     sit at 1e20 before the divergence check rejects it — finite in f32 but
     its squared norm is not):
     - cross-chain centering uses α-and-finiteness MASKED means, so one
@@ -410,7 +410,7 @@ def make_chees_drive(
     """Pure ``(q0, k_eps, k_run) → arrays`` program; same factory contract
     as ``make_hmc_drive`` so it jits on one chip or runs inside
     ``shard_map`` with the chain batch sharded over ``chain_axis`` (the
-    ChEES expectations then reduce over ICI with pmean)."""
+    ChEES expectations then reduce over the mesh with pmean)."""
     dt = settings.real_dtype()
     d = staged.dim
 

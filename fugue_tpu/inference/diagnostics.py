@@ -6,7 +6,7 @@ trait :104-207, split-R-hat :218-259, parameter summaries :322-391,
 ``print_diagnostics`` with convergence verdicts at 1.01/1.1 thresholds
 :394-456).
 
-TPU-native form: samples live as (n_chains, n_samples[, ...site shape])
+Array-program form: samples live as (n_chains, n_samples[, ...site shape])
 arrays per site — diagnostics are batched jit-compiled ops over those arrays
 (the north-star requirement), not loops over Vec<Trace>.
 """

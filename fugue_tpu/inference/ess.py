@@ -13,7 +13,7 @@ step size, NO mass matrix, and NO trajectory length — nothing to adapt.
 No reference counterpart (fugue samples such models with adapted MH/HMC,
 src/inference/mh.rs / hmc.rs); this is a capability extension.
 
-TPU shape: the shrinkage loop is a bounded ``while_loop`` vmapped over
+Array shape: the shrinkage loop is a bounded ``while_loop`` vmapped over
 chains (masked lock-step — typically 1–4 likelihood evaluations, and the
 ellipse contracts to f itself so the bound cannot bias the invariant
 distribution: θ → 0 reproduces f exactly). Each likelihood evaluation is

@@ -8,7 +8,7 @@ re-tune :187-233,885-908, divergence = non-finite force/log-joint → always
 reject :445-458, discrete sites held fixed (Metropolis-within-Gibbs) :69-71,
 incremental ``HmcSession`` :643-920, ``hmc_chain`` wrapper :566).
 
-TPU-native re-design (SURVEY.md §3.3):
+Array-program re-design (SURVEY.md §3.3):
 - forces come from ONE ``jax.grad`` of the staged log-density — replacing the
   reference's (L+1)·2d finite-difference model runs per proposal
   (hmc.rs:301-329) with (L+1) gradient evaluations *independent of d*;
@@ -481,7 +481,7 @@ def make_hmc_drive(
     with a vmapped chain batch, or (b) inside ``shard_map`` with the chain
     batch sharded over mesh axis ``chain_axis`` — where the adaptation
     statistics (acceptance pmean, initial epsilon, Welford mass moments)
-    become ICI collectives (parallel/sharded.py).
+    become mesh collectives (parallel/sharded.py).
     """
     dt = settings.real_dtype()
     d = staged.dim

@@ -8,11 +8,11 @@ MAP + Laplace is the standard missing rung of the PPL inference ladder
 beyond-parity engine built on the same staged log-density every other
 engine uses.
 
-TPU-native design: the objective is ``StagedModel.log_joint_unconstrained``
+Array-program design: the objective is ``StagedModel.log_joint_unconstrained``
 (log p + transform Jacobians — the density whose curvature the Laplace
 approximation needs), optimized by Adam or L-BFGS under ONE ``lax.scan``
 jitted program, with all random restarts vmapped into a single batch — the
-restarts are free parallelism on the MXU/VPU, not a Python loop. Gradients
+restarts are free batch parallelism on the device, not a Python loop. Gradients
 and Hessians come from autodiff of the staged density (the reference has no
 autodiff at all; its HMC uses central finite differences, hmc.rs:14-49).
 

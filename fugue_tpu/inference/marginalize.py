@@ -3,7 +3,7 @@
 SURVEY.md §7 hard part 2: discrete sites inside gradient kernels. The
 reference composes HMC with discrete sites by holding them fixed
 (Metropolis-within-Gibbs, reference: src/inference/hmc.rs:69-71); the
-TPU-native upgrade for *enumerable* discrete structure (mixture indicators,
+Upgrade for *enumerable* discrete structure (mixture indicators,
 Bernoulli switches, small integer ranges) is to sum them out exactly:
 
     log p(x, theta) = logsumexp_k  log p(x, theta, d = a_k)

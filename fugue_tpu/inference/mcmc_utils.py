@@ -6,7 +6,7 @@ normalized ESS with Geyer initial-positive-monotone truncation, single- and
 Vehtari multi-chain pooled-variance normalization, lag cap 2048 — FG-01/35/37
 :195-339; Geweke z with spectral SE :354-421).
 
-TPU-native re-design: every estimator is a batched, jit-able array program —
+Array-program re-design: every estimator is a batched, jit-able array program —
 autocovariances for ALL lags/chains/parameters at once via FFT (O(n log n)
 instead of the reference's O(n·lag) nested loops), adaptation state is a
 pytree of per-site arrays updated functionally inside the sampling ``scan``.

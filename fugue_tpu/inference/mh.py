@@ -8,7 +8,7 @@ ReflectionWalk:230, Flip:261, DiscreteWalk reflected about -1/2 FG-41
 + cached current score FG-11/12 :959-1011, frozen scales after warmup FG-57,
 driver ``adaptive_mcmc_chain`` :921-1011).
 
-TPU-native design: one transition is ONE jit-compiled array program evaluated
+Array-program design: one transition is ONE jit-compiled array program evaluated
 for ALL chains at once:
 
 1. draw a target site index per chain;
@@ -226,7 +226,7 @@ def mh_step(
 
     Proposals for ALL continuous sites are packed into one flat-vector op
     (one normal draw + fused elementwise candidate/selection math, constant
-    op count in #sites); only discrete sites loop. This is the TPU analog of
+    op count in #sites); only discrete sites loop. This is the array-program analog of
     the reference's per-site proposal dispatch (mh.rs:146-295) — the drawn
     site still changes alone, so the single-site kernel and its Hastings
     terms are unchanged.

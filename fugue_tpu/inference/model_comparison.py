@@ -8,7 +8,7 @@ al. 2017) are the standard posterior-predictive model-selection tools; they
 complete the evidence story next to ``adaptive_smc``'s ``log_evidence`` and
 ``laplace_approximation``'s Laplace estimate.
 
-TPU-native design: the pointwise log-likelihood matrix is produced by ONE
+Array-program design: the pointwise log-likelihood matrix is produced by ONE
 vmapped replay of the staged model over all posterior draws — a handler
 that records each observe site's *elementwise* log-probs instead of the
 summed accumulator, so a (draws × observations) matrix comes out of a

@@ -2,7 +2,7 @@
 
 The reference produces predictive draws by replaying a posterior trace
 through a hand-rewritten model (docs how-to around ReplayHandler,
-interpreters.rs:408-427). TPU-native version: one model definition, a
+interpreters.rs:408-427). Array-program version: one model definition, a
 ``PredictiveHandler`` that redraws ``observe`` sites, and ``jax.vmap`` over
 the stacked posterior draws — every (chain, draw) replays in one compiled
 program, no Python loop over samples.

@@ -9,7 +9,7 @@ draws. If the sampler targets the right posterior, every rank is uniform
 on {0..L}; a χ² uniformity test per coordinate catches bias, over- and
 under-dispersion.
 
-TPU-native form: the ENTIRE harness — prior-predictive generation, one HMC
+Array-program form: the ENTIRE harness — prior-predictive generation, one HMC
 chain per dataset, rank computation — is one jitted program with the
 dataset axis vmapped, so hundreds of calibration replicates cost one
 sampler wall-clock. Datasets reach the model through the data-as-arguments

@@ -1,6 +1,6 @@
 """Parallel tempering (replica exchange) over a vectorized temperature axis.
 
-Beyond-parity TPU-native engine (no reference counterpart; the closest
+Beyond-parity engine (no reference counterpart; the closest
 reference machinery is likelihood tempering inside SMC, smc.rs:455-580 —
 here the whole β ladder runs SIMULTANEOUSLY as one more batch axis).
 Multimodal posteriors defeat single-temperature HMC (chains cannot cross
@@ -8,8 +8,8 @@ low-density barriers); replica exchange runs K tempered copies
 π_β ∝ prior · likelihood^β and lets states migrate from the hot, flattened
 ladder rungs down to β = 1.
 
-TPU shape: positions are one (K·C, d) batch — every rung × every chain
-leapfrogs in the same vmapped HMC transition (the MXU/VPU see one big
+Array shape: positions are one (K·C, d) batch — every rung × every chain
+leapfrogs in the same vmapped HMC transition (the device sees one big
 batch, K× the work of plain HMC for far super-K× mixing on multimodal
 targets). Swaps are the classic deterministic even/odd neighbor scheme:
 each phase proposes ALL disjoint adjacent pairs at once as a masked gather

@@ -1,4 +1,4 @@
-"""TPU array-program building blocks: resampling, linalg, Pallas probes."""
+"""Array-program building blocks: resampling and linalg."""
 
 from .linalg import (
     matmul_bf16,

@@ -1,8 +1,8 @@
-"""MXU-friendly linear-algebra helpers for model code.
+"""Tensor-core linear-algebra helpers for model code.
 
-Large-d GLM likelihoods are matmuls; the MXU wants them in bfloat16 with
-f32 accumulation (the v5e systolic array natively multiplies bf16 and
-accumulates f32 — f32-input matmuls decompose into multiple passes). These
+Large-d GLM likelihoods are matmuls; the GPU's tensor cores run them fastest
+with bfloat16 inputs and f32 accumulation (989 TFLOP/s dense bf16 on an H100
+SXM against 67 TFLOP/s of plain f32, NVIDIA data sheet). These
 helpers are the supported way to write the design-matrix product inside a
 model so the staged potential keeps one clean matmul island:
 
@@ -10,7 +10,7 @@ model so the staged potential keeps one clean matmul island:
     ft.observe("y", ft.BernoulliLogits(logits), y)
 
 No reference counterpart (the reference is scalar Rust, SURVEY.md §2.3
-"Tensor parallel: no tensors"); this is the TPU-native realization of its
+"Tensor parallel: no tensors"); this is the accelerator realization of its
 "hot loops in the fast language" discipline.
 """
 
@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 
 def matmul_bf16(a, b):
-    """``a @ b`` with bf16 inputs and f32 accumulation — one MXU pass.
+    """``a @ b`` with bf16 inputs and f32 accumulation — one bf16 pass.
 
     Relative error per output element is ~bf16 eps (7.8e-3) on the INPUTS
     only; the contraction itself accumulates in f32, so the result does not
@@ -58,10 +58,11 @@ def matmul_bf16x2(a, w):
     log-density wiggles at the bf16 ULP scale of ``w`` — which collapses
     HMC dual averaging toward useless step sizes (measured on the
     d=1024/N=1e5 logistic row: eps 0.008 → 0.0004, R-hat 54). Splitting
-    w = hi + lo into two bf16 passes keeps both matmuls on the MXU while
+    w = hi + lo into two bf16 passes keeps both matmuls on the tensor cores
+    while
     restoring ~16 mantissa bits of parameter precision, so the wiggle
-    amplitude drops ~2^-8 below the thermal scale. Costs 2x the MXU work
-    of ``matmul_bf16``; the honest roofline halves accordingly.
+    amplitude drops ~2^-8 below the thermal scale. Costs 2x the matmul
+    work of ``matmul_bf16``; the honest roofline halves accordingly.
 
     The VJP is defined explicitly with the SAME split trick on the
     cotangent (autodiff through the hi/lo decomposition would bf16-round
@@ -114,9 +115,9 @@ def matmul_bf16x2_fastgrad(a, w):
     residual cotangent (elements O(1)), bf16 rounding is ~4e-3 relative
     per element and the f32-accumulated contraction over N rows averages
     it to ~4e-3/sqrt(N) on the gradient (~1e-5 at N=1e4) — far below the
-    thermal force scale. Cost: 3 MXU passes per value+grad instead of 4
-    (measured r5 ladder: the gradient kernel IS the whole cost of the
-    at-scale drive — benchmarks/PROFILE_SCALE.json, L1 ~= L3).
+    thermal force scale. Cost: 3 bf16 matmul passes per value+grad instead
+    of 4 (on the GPU the gain is not measured yet; scripts/profile_scale.py
+    is the ladder that measures it).
 
     Use ``matmul_bf16x2`` when the gradient itself is the deliverable
     (MAP/Laplace curvature, VI pathwise gradients at convergence)."""

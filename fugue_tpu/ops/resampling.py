@@ -2,7 +2,7 @@
 
 Capability parity with the reference resamplers (reference:
 src/inference/smc.rs:255-349 — systematic, stratified, multinomial index
-draws). TPU-native form: each scheme is a vectorized array program —
+draws). Accelerator form: each scheme is a vectorized array program —
 normalized-weight cumsum (associative scan) + ``searchsorted`` — O(N log N)
 with no sequential host loop, vmap/shard-safe. Ancestor indices are returned
 so callers gather any particle pytree with one ``jnp.take``.
@@ -39,28 +39,9 @@ def _indices_from_uniforms(weights, us):
 
 
 def systematic_resample(key, log_weights, n: int = None):
-    """Systematic resampling: one uniform, stratified comb (smc.rs:317).
-
-    With FUGUE_TPU_PALLAS_RESAMPLE=1 and 10^4+ particles this routes
-    through the fused Pallas pass (ops/pallas_kernels.psystematic_resample:
-    one HBM read, no materialized CDF) — opt-in because the XLA cumsum path
-    measured both faster and closer to f64 on v5e (see that docstring)."""
+    """Systematic resampling: one uniform, stratified comb (smc.rs:317)."""
     N = log_weights.shape[-1]
     n = n or N
-    if log_weights.ndim == 1 and n == N:
-        import os
-
-        from .pallas_kernels import _BLOCK, _LANE, pallas_active
-
-        if (
-            os.environ.get("FUGUE_TPU_PALLAS_RESAMPLE") == "1"
-            and pallas_active()
-            and N >= _BLOCK
-            and N % _LANE == 0
-        ):
-            from .pallas_kernels import psystematic_resample
-
-            return psystematic_resample(key, log_weights)
     w, _ = normalize_log_weights(log_weights)
     u0 = jax.random.uniform(key, ())
     us = (jnp.arange(n) + u0) / n

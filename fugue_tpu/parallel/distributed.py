@@ -1,21 +1,23 @@
-"""Multi-host (pod) backend: process bootstrap + DCN×ICI two-level meshes.
+"""Multi-host backend: process bootstrap + two-level (hosts x devices) meshes.
 
 The reference has no distributed layer at all (single-threaded Rust,
-Cargo.toml:48-52 — no MPI/NCCL); this module is the invented TPU-native
-structure SURVEY.md §5 "Distributed communication backend" calls for:
+Cargo.toml:48-52 — no MPI/NCCL); this module is the invented structure
+SURVEY.md §5 "Distributed communication backend" calls for:
 
 - ``initialize_distributed`` wraps ``jax.distributed.initialize`` with an
   env-var bootstrap (idempotent, no-op for single-process runs), so the same
-  script runs unchanged on a laptop, one host, or a pod slice.
-- ``make_hybrid_mesh`` builds a two-level device mesh: DCN (host-spanning)
-  axes OUTERMOST, ICI (within-slice) axes innermost, so collectives along the
-  inner axes ride ICI and only coarse reductions cross DCN — the
-  scaling-book layout rule.
+  script runs unchanged on a laptop, one host, or several hosts.
+- ``make_hybrid_mesh`` builds a two-level device mesh: ``dcn_axes``
+  (across hosts, over the data-center network) OUTERMOST, ``ici_axes``
+  (within a host, over NVLink between its GPUs) innermost, so collectives
+  along the inner axes stay inside a host and only coarse reductions cross
+  the network — the scaling-book layout rule.
 - ``flat_axis_index`` linearizes a multi-axis shard index for deterministic
   per-shard RNG folding that is independent of how the chain batch is split
-  across DCN×ICI.
+  across hosts and devices.
 
-Pod runbook (docs/scaling.md, 'Multi-host pods'): every host runs the SAME program;
+Multi-host runbook (docs/scaling.md, 'Multi-host runs'): every host runs the
+SAME program;
 set ``FUGUE_COORDINATOR_ADDRESS``, ``FUGUE_NUM_PROCESSES``,
 ``FUGUE_PROCESS_ID`` (or rely on the cluster auto-detection built into
 ``jax.distributed.initialize``), call ``initialize_distributed()`` first,
@@ -128,7 +130,7 @@ def initialize_distributed(
 
 
 # ---------------------------------------------------------------------------
-# DCN × ICI two-level meshes
+# two-level (hosts x local devices) meshes
 # ---------------------------------------------------------------------------
 
 
@@ -139,14 +141,14 @@ def make_hybrid_mesh(
     devices: Optional[Sequence] = None,
 ) -> Mesh:
     """Two-level mesh: ``dcn_axes`` (outermost, host-spanning) × ``ici_axes``
-    (innermost, within a slice). Axis order in the mesh is
+    (innermost, within a host). Axis order in the mesh is
     ``(*dcn_axes, *ici_axes)`` so that sharding a batch over
-    ``tuple(mesh.axis_names)`` keeps neighboring shards ICI-adjacent and
-    collectives over the inner axes never leave the slice.
+    ``tuple(mesh.axis_names)`` keeps neighboring shards on one host and
+    collectives over the inner axes never leave it.
 
     An axis size of ``-1`` (at most one per level) infers the size from the
-    device count. On a real multi-process pod this uses
-    ``mesh_utils.create_hybrid_device_mesh`` (DCN-aware placement); in a
+    device count. With one process per host this uses
+    ``mesh_utils.create_hybrid_device_mesh`` (process-aware placement); in a
     single process (including virtual CPU device farms) it falls back to a
     row-major reshape, which preserves the same logical layout for testing.
     """
@@ -180,37 +182,32 @@ def make_hybrid_mesh(
     if jax.process_count() > 1 and n_dcn > 0:
         from jax.experimental import mesh_utils
 
-        # DCN granule selection (first exercised for real by the 2-process
-        # integration test, tests/test_distributed_multiprocess.py):
-        # - multi-SLICE topology (ICI does not span slices): granule = slice
-        # - multi-HOST single-slice (v5e-16 style) or CPU processes: there
-        #   is only one slice, so granule = process
+        # one process per host-spanning granule (exercised for real by the
+        # 2-process integration test, tests/test_distributed_multiprocess.py)
         n_dcn_total = int(np.prod(dcn_shape))
-        slice_ids = {getattr(d, "slice_index", 0) or 0 for d in devices}
-        use_slices = len(slice_ids) == n_dcn_total
-        if use_slices or jax.process_count() == n_dcn_total:
+        if jax.process_count() == n_dcn_total:
             grid = mesh_utils.create_hybrid_device_mesh(
                 mesh_shape=ici_shape or (1,),
                 dcn_mesh_shape=dcn_shape,
                 devices=devices,
-                process_is_granule=not use_slices,
+                process_is_granule=True,
             )
             grid = grid.reshape(sizes)
         else:
             # irregular layout (dcn axes spanning several processes per
-            # granule): sort by (process, id) so the DCN axis follows
+            # granule): sort by (process, id) so the host axis follows
             # process boundaries, then row-major reshape
             ordered = sorted(devices, key=lambda d: (d.process_index, d.id))
             grid = np.asarray(ordered).reshape(sizes)
     else:
-        # single process (or no DCN level): row-major reshape keeps the
+        # single process (or no host level): row-major reshape keeps the
         # logical layout identical for virtual-device testing
         grid = np.asarray(devices).reshape(sizes)
     return Mesh(grid, names)
 
 
 def make_pod_chain_mesh(devices: Optional[Sequence] = None) -> Mesh:
-    """The default pod layout for MCMC/SMC: one DCN axis over hosts, one ICI
+    """The default multi-host layout for MCMC/SMC: one axis over hosts, one
     axis over each host's local devices; shard chain/particle batches over
     BOTH axes (``chain_axes=("hosts", "chains")``)."""
     if devices is None:

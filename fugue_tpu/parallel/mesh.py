@@ -2,11 +2,11 @@
 
 The single backend module the engines use for multi-chip scale-out
 (SURVEY.md §5 "Distributed communication backend"): mesh construction over
-ICI/DCN, named-axis shardings for chain/particle batches, and the small
+the devices of one or several hosts, named-axis shardings for chain/particle batches, and the small
 collective vocabulary (pmean for cross-chain adaptation consensus, psum for
 ESS/log-evidence/likelihood reductions, all_gather/permutation for SMC
 resampling). The reference has no distributed layer at all (Cargo.toml:48-52
-— no MPI/NCCL); this module is the invented TPU-native structure.
+— no MPI/NCCL); this module is the invented device-mesh structure.
 """
 
 from __future__ import annotations

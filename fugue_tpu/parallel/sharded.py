@@ -4,7 +4,7 @@ Two complementary SPMD strategies, both idiomatic JAX:
 
 1. **shard_map + explicit collectives** (HMC/NUTS): the chain batch is a
    named mesh axis; warmup adaptation — acceptance pmean, initial-epsilon
-   consensus, Welford mass merge — runs as ICI collectives so EVERY device
+   consensus, Welford mass merge — runs as mesh collectives so EVERY device
    adapts the same kernel (``make_hmc_drive(chain_axis=...)``). This is the
    cross-chain adaptation structure SURVEY.md §2.3 calls for; the reference
    has nothing to port (single-threaded Rust).
@@ -16,7 +16,7 @@ Two complementary SPMD strategies, both idiomatic JAX:
    collectives).
 
 Both paths compile and run identically on a virtual CPU mesh
-(``--xla_force_host_platform_device_count``) and a real TPU slice.
+(``--xla_force_host_platform_device_count``) and real GPUs.
 """
 
 from __future__ import annotations
@@ -35,14 +35,8 @@ from .mesh import CHAIN_AXIS, make_chain_mesh
 
 
 def _shard_map(f, mesh, in_specs, out_specs):
-    try:
-        return jax.shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                             check_vma=False)
-    except TypeError:
-        from jax.experimental.shard_map import shard_map as _sm
-
-        return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                   check_rep=False)
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                         check_vma=False)
 
 
 def _sharded_discrete_key(discrete):
@@ -56,7 +50,7 @@ def _sharded_discrete_key(discrete):
 
 def _resolve_chain_axes(mesh: Mesh, chain_axes) -> tuple:
     """Default chain axes: the named CHAIN_AXIS when present, else EVERY
-    mesh axis (the pod layout: chains sharded over hosts x local devices)."""
+    mesh axis (the multi-host layout: chains sharded over hosts x local devices)."""
     if chain_axes is None:
         if CHAIN_AXIS in mesh.axis_names:
             chain_axes = (CHAIN_AXIS,)
@@ -67,7 +61,7 @@ def _resolve_chain_axes(mesh: Mesh, chain_axes) -> tuple:
 
 def _chain_spec_element(chain_axes: tuple):
     """PartitionSpec element for the chain dim: a bare name for one axis, a
-    tuple for a multi-axis (DCN x ICI) split."""
+    tuple for a multi-axis (hosts x local devices) split."""
     return chain_axes[0] if len(chain_axes) == 1 else tuple(chain_axes)
 
 
@@ -90,7 +84,7 @@ def sharded_hmc_chain(
     ``n_chains`` is the GLOBAL chain count (must divide evenly by the product
     of the chain-axis sizes). ``chain_axes`` selects which mesh axes split
     the batch — default: the ``CHAIN_AXIS`` if the mesh has one, otherwise
-    ALL axes (the DCN×ICI pod layout from ``make_pod_chain_mesh``, where
+    ALL axes (the hosts x devices layout from ``make_pod_chain_mesh``, where
     adaptation collectives reduce over hosts AND local devices). Returns the
     same ``HMCResult`` as the single-chip driver with global (n_chains, ...)
     arrays.
@@ -123,7 +117,7 @@ def sharded_hmc_chain(
     )
     # large stage() data arguments enter the shard-mapped program as traced
     # inputs, replicated across shards (StagedModel.data_leaves — keeps
-    # giant design matrices out of the compile payload on pods too)
+    # giant design matrices out of the compiled program on meshes too)
     data = staged.data_leaves()
 
     def shard_fn(q0_local, k_eps, k_run, *dl):
@@ -196,7 +190,7 @@ def sharded_nuts_chain(
     cross-shard collectives for the warmup adaptation (dual-averaging
     acceptance pmean, initial-epsilon consensus, Welford mass merge), so
     every device runs the identical adapted kernel. ``chain_axes`` defaults
-    to the ``CHAIN_AXIS`` when present, else all mesh axes (pod layout)."""
+    to the ``CHAIN_AXIS`` when present, else all mesh axes (multi-host layout)."""
     from ..inference.nuts import NUTSConfig, NUTSResult, make_nuts_drive
 
     if config is None:
@@ -398,7 +392,7 @@ def sharded_smc(
     bisection + ancestor draw bit-identical to single-device); the particle
     pytree moves via a nearest-neighbor ``ppermute`` ring and is NEVER
     all-gathered (``inference.smc._ring_gather`` — SURVEY.md §7 hard part
-    4; SURVEY.md §3.4 TPU translation)."""
+    4; SURVEY.md §3.4 translation)."""
     from ..inference.smc import SMCConfig, adaptive_smc
 
     if config is None:
@@ -725,8 +719,7 @@ def sharded_abc_rejection(
         latents, d = jax.vmap(one)(keys)
         ok = d <= epsilon
         # top_k on the acceptance mask (any accepted rows; exchangeable)
-        # instead of a full argsort — a 131k-lane argsort costs ~50 ms on
-        # the MXU-less sort path and dominated the rejection loop
+        # instead of a full argsort of the batch
         _, take = jax.lax.top_k(ok.astype(jnp.float32), cap)
         top = {a: jnp.take(v, take, axis=0) for a, v in latents.items()}
         d_top = jnp.take(d, take)

@@ -4,7 +4,7 @@ The reference has no serialization; its *mechanism* is the replayable trace +
 incremental sessions holding all inter-transition state in a value
 (SURVEY.md §5 "Checkpoint/resume": trace+replay architecture,
 interpreters.rs:374-427; HmcSession hmc.rs:604-642; seeds documented as "a
-replayable recording"). On TPU pods runs are long, so checkpointing is
+replayable recording"). On multi-host meshes runs are long, so checkpointing is
 first-class here: any sampler state — (PRNG key, position arrays, adaptation
 state, samples so far) — is a pytree of arrays and round-trips through a
 single ``.npz`` file keyed by tree paths. ``load_checkpoint`` takes a
@@ -12,7 +12,7 @@ template pytree (e.g. the freshly-initialized state) so structure never
 depends on unpickling arbitrary objects.
 
 ``save_checkpoint_sharded`` / ``load_checkpoint_sharded`` cover the
-multi-host pod case via orbax: each host writes only the shards of
+multi-host case via orbax: each host writes only the shards of
 mesh-sharded arrays it owns, and restore re-places shards onto the template's
 ``Sharding`` — the state never has to fit on (or move through) one host.
 """

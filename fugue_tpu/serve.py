@@ -4,8 +4,8 @@ serving boundary.
 The reference's L6 ships the same capability set behind a wasm-bindgen
 artifact a browser loads directly (reference: crates/fugue-wasm/src/lib.rs:
 1-14 — CompiledModel, WasmMh, WasmHmc, WasmParticleFilter, wasm_smc_run,
-log_joint_grid). A TPU inference engine lives in a host process instead, so
-the equivalent deployment surface is this transport-thin JSON-RPC layer: a
+log_joint_grid). An accelerator inference engine lives in a host process
+instead, so the equivalent deployment surface is this transport-thin JSON-RPC layer: a
 web frontend (or any client) POSTs ``{"method": ..., "params": ...}`` and
 drives the REAL engines on the accelerator. Stdlib-only (http.server +
 json): no framework dependencies to gate deployment.
@@ -53,7 +53,7 @@ class ServiceError(Exception):
 
 class FugueService:
     """Method registry + model/session stores. One instance per process;
-    calls are serialized with a lock (one TPU, device-resident session
+    calls are serialized with a lock (one device, device-resident session
     state)."""
 
     def __init__(self, seed: int = 0):
@@ -316,7 +316,7 @@ class FugueService:
     def _hmc_sharded(self, p):
         """One-shot device-parallel HMC over the host's mesh: runs
         ``sharded_hmc_chain`` on all local devices and returns per-site
-        posterior summaries + split-R-hat (the pod-scale engine reachable
+        posterior summaries + split-R-hat (the multi-device engine reachable
         from the browser client)."""
         from .inference.mcmc_utils import split_r_hat
         from .parallel.mesh import make_chain_mesh
@@ -450,6 +450,9 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=8700)
     ap.add_argument("--host", default="127.0.0.1")
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     print(f"fugue-tpu JSON-RPC service on {args.host}:{args.port}")
     serve(args.port, args.host)
 

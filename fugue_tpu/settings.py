@@ -1,7 +1,10 @@
 """Global dtype / precision policy.
 
-The reference is f64 end-to-end (Rust ``f64``). TPUs natively prefer f32 (and
-bf16 on the MXU); f64 is emulated and slow. Policy (SURVEY.md §7 hard part 5):
+The reference is f64 end-to-end (Rust ``f64``). The device path defaults to
+f32: it halves memory traffic, and the tensor-core paths take bf16 and TF32.
+The H100 runs f64 natively (34 TFLOP/s against 67 TFLOP/s of f32 on the SXM
+part, NVIDIA data sheet); an x64 device mode is not measured yet. Policy
+(SURVEY.md §7 hard part 5):
 
 - positions / samples: ``real_dtype`` (default float32)
 - log-weight accumulators: ``accum_dtype`` (default float32; promote to

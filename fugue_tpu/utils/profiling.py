@@ -2,7 +2,7 @@
 
 The reference's introspection story is structural (the trace IS the record;
 criterion benches with committed medians — SURVEY.md §5 "Tracing/profiling").
-The TPU build adds the runtime side: a JAX-profiler context for device
+This build adds the runtime side: a JAX-profiler context for device
 traces viewable in TensorBoard/Perfetto, and a steady-state timing helper
 that separates compile time from execution time — the discipline every bench
 in this repo follows (first call compiles, subsequent calls measure).

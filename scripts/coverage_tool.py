@@ -10,9 +10,7 @@ Usage:
     python scripts/coverage_tool.py report                 # merge + report
 
 The enforced bar mirrors the reference's Makefile:13-14 (80% lines).
-Exclusions: lines tagged ``# pragma: no cover`` and whole files listed in
-OMIT (TPU-only Pallas kernels are exercised behind FUGUE_TPU_PALLAS=1, not
-in the CPU suite).
+Exclusions: lines tagged ``# pragma: no cover``.
 """
 from __future__ import annotations
 
@@ -30,11 +28,6 @@ BAR = 80.0
 FILE_FLOOR = 75.0
 # files whose lines are only executable on hardware this box lacks
 FLOOR_EXEMPT: tuple = ()
-OMIT = {
-    # measured-and-defaulted-off TPU kernels (benchmarks/PALLAS_PROBE.json);
-    # exercised only under FUGUE_TPU_PALLAS=1 on a real chip
-    os.path.join(PKG, "ops", "pallas_kernels.py"),
-}
 
 
 def _code_lines(code) -> set:
@@ -69,9 +62,7 @@ def iter_sources():
     for root, _dirs, files in os.walk(PKG):
         for f in sorted(files):
             if f.endswith(".py"):
-                p = os.path.join(root, f)
-                if p not in OMIT:
-                    yield p
+                yield os.path.join(root, f)
 
 
 def merge_hits() -> dict:

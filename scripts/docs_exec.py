@@ -7,7 +7,7 @@ in one namespace per file — so guide snippets cannot silently rot.
 
 A block can opt out by placing ``<!-- docs-exec: skip -->`` on any of the
 three lines above its opening fence (for genuinely illustrative fragments:
-bash transcripts, pod-only code). Skips are deliberate and visible in the
+bash transcripts, multi-host-only code). Skips are deliberate and visible in the
 markdown source.
 
 Standalone: python scripts/docs_exec.py docs/getting_started.md

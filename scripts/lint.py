@@ -25,7 +25,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_PATHS = ["fugue_tpu", "tests", "scripts", "examples",
-                 "bench.py", "__graft_entry__.py"]
+                 "bench.py", "chip_smoke.py", "__graft_entry__.py"]
 ALLOWED_CALL_DEFAULTS = {
     # frozen/hashable config factories are the documented idiom
     "HMCConfig", "NUTSConfig", "ChEESConfig", "SMCConfig", "VIConfig",

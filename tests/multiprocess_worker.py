@@ -1,6 +1,6 @@
 """Worker program for the REAL 2-process ``jax.distributed`` integration
 test (tests/test_distributed_multiprocess.py). Each process runs this same
-script — the pod contract — with FUGUE_* env vars set by the test."""
+script — the multi-host contract — with FUGUE_* env vars set by the test."""
 
 import os
 import sys
@@ -9,7 +9,6 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -17,7 +16,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
-from jax.experimental.shard_map import shard_map  # noqa: E402
 
 import fugue_tpu as ft  # noqa: E402
 from fugue_tpu.parallel.distributed import (  # noqa: E402
@@ -44,19 +42,19 @@ def main():
     shape = dict(zip(mesh.axis_names, mesh.devices.shape))
     assert shape == {"hosts": 2, "chains": n_global // 2}, shape
 
-    # 1. bare cross-process psum over the DCN x ICI mesh
+    # 1. bare cross-process psum over the hosts x devices mesh
     def f():
         idx = flat_axis_index(mesh, ("hosts", "chains"))
         return jax.lax.psum(idx + 1, ("hosts", "chains"))
 
     total = int(np.asarray(jax.device_get(jax.jit(
-        shard_map(f, mesh=mesh, in_specs=(), out_specs=P())
+        jax.shard_map(f, mesh=mesh, in_specs=(), out_specs=P())
     )())))
     assert total == n_global * (n_global + 1) // 2, total
     print(f"proc {pid}: psum OK ({total})", flush=True)
 
     # 2. a REAL sharded engine across processes: HMC with the chain batch
-    # split over hosts x chains; adaptation consensus crosses DCN
+    # split over hosts x chains; adaptation consensus crosses processes
     def model():
         mu = ft.sample("mu", ft.Normal(0.0, 2.0))
         ft.observe("y", ft.Normal(mu, 1.0), jnp.array([1.2, 0.8, 1.0]))
@@ -67,7 +65,7 @@ def main():
         chain_axes=("hosts", "chains"), n_samples=400, n_warmup=400,
     )
     # the result spans both processes; gather it (every host gets the
-    # global array — the documented pod pattern for small summaries)
+    # global array — the documented multi-host pattern for small summaries)
     from jax.experimental import multihost_utils
 
     mus = np.asarray(multihost_utils.process_allgather(
@@ -84,7 +82,7 @@ def main():
     # hard part #4, executed un-mocked for the first time — VERDICT r4
     # missing #2): particles sharded over a 1-D mesh spanning BOTH
     # processes' devices, so the beta-ladder all_gathers and the ppermute
-    # ancestor ring cross DCN. Reference resampling semantics:
+    # ancestor ring cross processes. Reference resampling semantics:
     # /root/reference/src/inference/smc.rs:255-349.
     from fugue_tpu.inference.smc import SMCConfig, adaptive_smc
     from fugue_tpu.parallel.mesh import make_chain_mesh

@@ -192,7 +192,7 @@ def test_abc_rejection_inner_batches_matches_posterior():
 
 def test_abc_rejection_rbg_simulator_matches_posterior():
     """rng_impl='rbg': the candidate simulators run on the hardware RBG
-    generator (the TPU bulk-draw path); the posterior is unchanged."""
+    generator; the posterior is unchanged."""
     flips = jnp.array([1, 1, 1, 0, 1, 0, 1, 1, 0, 1], dtype=bool)
 
     def coin():

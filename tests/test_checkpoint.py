@@ -75,7 +75,7 @@ def test_atomic_overwrite(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Sharded (orbax) checkpoints — multi-host pod path, tested on the 8-device
+# Sharded (orbax) checkpoints — multi-host path, tested on the 8-device
 # CPU mesh (SURVEY.md §5 "Checkpoint/resume")
 # ---------------------------------------------------------------------------
 
@@ -123,7 +123,7 @@ def test_sharded_restore_onto_different_layout(tmp_path):
     path = os.path.join(str(tmp_path), "ckpt")
     save_checkpoint_sharded(path, state)
 
-    # resume onto a DIFFERENT mesh layout (e.g. new pod slice shape)
+    # resume onto a DIFFERENT mesh layout (e.g. a new device count)
     mesh2 = Mesh(np.array(jax.devices()).reshape(4, 2), ("chains", "model"))
     s2 = NamedSharding(mesh2, P("model", "chains"))
     template = dict(state)

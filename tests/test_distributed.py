@@ -1,4 +1,4 @@
-"""Multi-host backend: env bootstrap + DCN×ICI hybrid meshes.
+"""Multi-host backend: env bootstrap + hosts x devices hybrid meshes.
 
 The bootstrap path is unit-tested with faked env vars and a recorded
 initialize function (no real coordinator needed); the hybrid-mesh sharded
@@ -103,7 +103,7 @@ def test_initialize_calls_jax_with_env_config(monkeypatch):
 
 def test_make_hybrid_mesh_shapes():
     mesh = make_hybrid_mesh(ici_axes={"chains": 4}, dcn_axes={"hosts": 2})
-    assert mesh.axis_names == ("hosts", "chains")  # DCN outermost
+    assert mesh.axis_names == ("hosts", "chains")  # hosts outermost
     assert mesh.devices.shape == (2, 4)
 
 

@@ -6,7 +6,7 @@ mdBook snippet through a dedicated test crate
 every fenced ```python block in docs/*.md and README.md EXECUTES, in
 order, one namespace per file — a broken snippet fails CI instead of
 rotting silently. Blocks marked ``<!-- docs-exec: skip -->`` (bash
-transcripts, pod-only fragments) are deliberately exempt and counted, so
+transcripts, multi-host-only fragments) are deliberately exempt and counted, so
 new skips are visible in review.
 """
 

@@ -4,10 +4,8 @@ Reference parity: tests/f_docs_no_dead_module_refs.rs +
 f_docs_inference_examples.rs — documentation must not drift from the code.
 """
 
-import json
 import os
 import re
-
 
 import fugue_tpu as ft
 
@@ -55,54 +53,3 @@ def test_examples_reference_real_exports():
             if not hasattr(ft, name):
                 bad.append((fn, name))
     assert not bad, f"examples reference unknown attributes: {bad}"
-
-
-def test_perf_table_matches_bench_artifact():
-    """docs/performance.md's headline table is GENERATED from
-    benchmarks/BENCH_SUITE.json (scripts/gen_perf_docs.py); this gate fails
-    the build whenever prose drifts from the artifact (the round-1/round-2
-    drift bug class)."""
-    import importlib.util
-    import re
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "gen_perf_docs", os.path.join(repo, "scripts", "gen_perf_docs.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-
-    with open(mod.ARTIFACT) as f:
-        suite = json.load(f)
-    expected = mod.render_table(suite)
-    with open(mod.DOC) as f:
-        doc = f.read()
-    m = re.search(re.escape(mod.BEGIN) + r"\n(.*?)\n" + re.escape(mod.END),
-                  doc, re.S)
-    assert m, "generated-table markers missing from docs/performance.md"
-    assert m.group(1) == expected, (
-        "docs/performance.md table is stale — run `python "
-        "scripts/gen_perf_docs.py` (or `make bench`)")
-
-
-def test_readme_bullets_match_bench_artifact():
-    """README.md's performance bullets are generated from BENCH_SUITE.json
-    like the performance.md table — drift fails the build."""
-    import importlib.util
-    import re
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    spec = importlib.util.spec_from_file_location(
-        "gen_perf_docs", os.path.join(repo, "scripts", "gen_perf_docs.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-
-    with open(mod.ARTIFACT) as f:
-        suite = json.load(f)
-    expected = mod.render_readme_bullets(suite)
-    with open(mod.README) as f:
-        doc = f.read()
-    m = re.search(re.escape(mod.R_BEGIN) + r"\n(.*?)\n"
-                  + re.escape(mod.R_END), doc, re.S)
-    assert m, "generated-bullets markers missing from README.md"
-    assert m.group(1) == expected, (
-        "README bullets stale — run scripts/gen_perf_docs.py")

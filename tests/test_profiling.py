@@ -27,7 +27,7 @@ def test_cost_summary_reports_flops():
     b = jnp.ones((64, 16))
     c = cost_summary(mm, a, b)
     assert isinstance(c, dict)
-    # XLA's cost model counts the 2*M*N*K matmul flops on CPU & TPU alike
+    # XLA's cost model counts the 2*M*N*K matmul flops on CPU & GPU alike
     if "flops" in c:
         assert c["flops"] >= 2 * 32 * 64 * 16
 

@@ -120,7 +120,6 @@ def test_module_layout():
     import fugue_tpu.parallel.mesh
     import fugue_tpu.parallel.sharded
     import fugue_tpu.ops.resampling
-    import fugue_tpu.ops.pallas_kernels
     import fugue_tpu.dsl.compiler
     import fugue_tpu.dsl.sessions
 

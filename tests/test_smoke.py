@@ -125,7 +125,7 @@ def test_stack_safety_many_sites():
     eager-dispatch test fast. The full 100k-site run was measured once at
     76 s on this host (2-CPU, eager per-site jax dispatch ~0.76 ms/site,
     linear in #sites, constant memory) — the cost curve is documented in
-    docs/performance.md; the scaling story on TPU is vectorized sites, not
+    docs/performance.md; the scaling story on the device is vectorized sites, not
     100k scalar ones."""
     n = 10_000
 
